@@ -28,7 +28,7 @@ from .utils.timer import Timer
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="photobundle-tpu",
-                                description="TPU-native photometric bundle adjustment")
+                                description="photometric bundle adjustment in JAX")
     p.add_argument("--config", required=True, help="path to .cfg file")
     p.add_argument("--output", default="refined_poses.txt",
                    help="output KITTI-format trajectory")

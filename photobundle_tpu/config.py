@@ -1,10 +1,11 @@
 """Configuration system: frozen dataclasses + `key = value` .cfg files.
 
-TPU-native replacement for the reference's `ConfigFile` / `ProgramOptions`
+JAX replacement for the reference's `ConfigFile` / `ProgramOptions`
 (reference: pb:src/utils.h/.cc, Boost.program_options). The same `.cfg`
 syntax is accepted (``key = value`` lines, ``#``/``%`` comments) so reference
 configs can be dropped in; option names follow the reference's camelCase
-(SURVEY.md section 5.6) with TPU-specific additions grouped at the end.
+(SURVEY.md section 5.6) with additions of this implementation grouped at the
+end.
 
 `PBAConfig` is hashable and immutable, so it is safe to close over in `jit`
 or pass as a static argument — shapes derived from it (window size, point
@@ -118,12 +119,8 @@ class PBAConfig:
                                           # scale change under forward
                                           # motion — BASELINE.md "Texture-
                                           # sharpness probe"); scale clamped
-                                          # to [0.5, 2]. 'scale' runs on
-                                          # the Pallas scaled gather kernel
-                                          # (bilinear/sampled); 'affine' is
-                                          # a full 2-D warp and runs on the
-                                          # XLA sampling path (auto backend
-                                          # falls back to xla).
+                                          # to [0.5, 2]. Both run on the
+                                          # XLA sampling path.
     patchScale: bool = False              # DEPRECATED alias for
                                           # patchWarp = scale. The round-4
                                           # frozen-seed variant this key
@@ -342,16 +339,15 @@ class PBAConfig:
                                           # 0 = off (raw-intensity SAD,
                                           # the historical default).
 
-    # --- TPU-native additions (no reference counterpart) ---
+    # --- additions of this implementation (no reference counterpart) ---
     dtype: str = "float32"
     gradientMode: str = "sampled"         # 'sampled' (smoothed central-diff
                                           # gradient images, DSO-style) or
                                           # 'exact' (bilinear-surface grad,
                                           # matches jax.grad exactly)
-    interpolation: str = "bilinear"       # 'bilinear' (spec default, Pallas
-                                          # fast path) or 'bicubic'
-                                          # (Catmull-Rom, Ceres parity —
-                                          # XLA path, exact surface grads)
+    interpolation: str = "bilinear"       # 'bilinear' (spec default) or
+                                          # 'bicubic' (Catmull-Rom, Ceres
+                                          # parity — exact surface grads)
     meshPoints: int = 1                   # chips along the point axis
     meshWindows: int = 1                  # data-parallel window/sequence axis
     meshFrames: int = 1                   # chips along the window-FRAME axis
@@ -366,8 +362,8 @@ class PBAConfig:
                                           # == 0; composes with meshPoints.
     pipelineResults: bool = False         # fetch window results on a
                                           # background thread (results lag
-                                          # one frame; hides the fetch
-                                          # round-trip on remote backends)
+                                          # one frame; overlaps the result
+                                          # fetch with the next frame)
     transportCompress: bool = True        # uint8 images on the host->device
                                           # path (lossless for 8-bit
                                           # sources; 4x less transfer)
@@ -389,10 +385,13 @@ class PBAConfig:
                                           # native = C++ libpng decode +
                                           # OpenMP stereo BM + prefetch
                                           # pipeline (photobundle_tpu/native)
-    solverBackend: str = "auto"           # 'auto' | 'pallas' | 'xla' — auto
-                                          # uses the fused Pallas sampling
-                                          # kernel on TPU (gradientMode
-                                          # 'sampled' only), XLA elsewhere
+    solverBackend: str = "auto"           # 'auto' | 'triton' | 'xla' — auto
+                                          # uses the fused Triton sampling
+                                          # kernel (ops/triton_stats) on a
+                                          # GPU for the modes it implements
+                                          # (bilinear 'sampled' gradients,
+                                          # no patchWarp, 'mean'/'off'
+                                          # normalization), XLA elsewhere
     checkpointDir: str = ""
     depthCacheDir: str = ""               # cache computed stereo depth maps
                                           # (npz per frame, keyed by the
@@ -435,30 +434,31 @@ class PBAConfig:
             return self.patchWarp
         return "scale" if self.patchScale else None
 
+    def triton_supported(self) -> bool:
+        """Whether the fused Triton sampler implements this sampling mode
+        (see core/residuals.triton_supports)."""
+        from .core.residuals import triton_supports
+
+        return triton_supports(self.resolve_gradient_mode(),
+                               self.resolve_normalization(),
+                               self.resolve_patch_warp())
+
     def resolve_backend(self) -> str:
-        """'auto' -> fused Pallas kernels on TPU: the bilinear warp kernel
-        (gradientMode='sampled') or the Catmull-Rom kernel
-        (interpolation='bicubic', exact surface gradients in-kernel);
-        XLA elsewhere."""
-        if self.solverBackend != "auto":
-            return self.solverBackend
+        """'auto' -> the fused Triton sampler on a GPU for the modes it
+        implements, XLA everywhere else. An explicit 'triton' off the GPU
+        raises: the kernel never falls back to the Pallas interpreter."""
+        if self.solverBackend == "xla":
+            return "xla"
         import jax
 
-        on_tpu = jax.default_backend() not in ("cpu", "gpu")
-        pw = self.resolve_patch_warp()
-        if pw is not None:
-            # 'scale' runs on the scaled gather kernel (round-5); 'affine'
-            # (full 2-D warp) is gather-path only. The scaled window
-            # (2*ceil(2*R)+2 px, 3 lanes/px) must fit one 128-lane panel
-            # with a positive stride: R <= 9.
-            ok = (pw == "scale" and self.interpolation == "bilinear"
-                  and self.gradientMode == "sampled"
-                  and self.patchRadius <= 9)
-            return "pallas" if (on_tpu and ok) else "xla"
-        fast_path = ((self.interpolation == "bilinear"
-                      and self.gradientMode == "sampled")
-                     or self.interpolation == "bicubic")
-        return "pallas" if (on_tpu and fast_path) else "xla"
+        on_gpu = jax.default_backend() == "gpu"
+        if self.solverBackend == "triton":
+            if not on_gpu:
+                raise ValueError(
+                    "solverBackend=triton needs a GPU (default backend is "
+                    f"'{jax.default_backend()}'); use auto or xla")
+            return "triton"
+        return "triton" if (on_gpu and self.triton_supported()) else "xla"
 
     def validate(self) -> "PBAConfig":
         if self.descriptor not in _DESCRIPTOR_CHANNELS:
@@ -471,7 +471,7 @@ class PBAConfig:
             raise ValueError(f"unknown gradientMode '{self.gradientMode}'")
         if self.interpolation not in ("bilinear", "bicubic"):
             raise ValueError(f"unknown interpolation '{self.interpolation}'")
-        if self.solverBackend not in ("auto", "pallas", "xla"):
+        if self.solverBackend not in ("auto", "triton", "xla"):
             raise ValueError(f"unknown solverBackend '{self.solverBackend}'")
         if self.dataLoader not in ("auto", "native", "python"):
             raise ValueError(f"unknown dataLoader '{self.dataLoader}'")
@@ -486,16 +486,11 @@ class PBAConfig:
             raise ValueError("gradientSigma must be >= 0 (0 = off)")
         if self.patchWarp not in ("none", "scale", "affine"):
             raise ValueError(f"unknown patchWarp '{self.patchWarp}'")
-        pw = self.resolve_patch_warp()
-        if (pw is not None and self.solverBackend == "pallas"
-                and (pw != "scale" or self.interpolation != "bilinear"
-                     or self.gradientMode != "sampled"
-                     or self.patchRadius > 9)):
-            raise ValueError("only patchWarp='scale' with bilinear/sampled "
-                             "and patchRadius <= 9 runs on the pallas "
-                             "backend; patchWarp='affine' (or other "
-                             "sampling modes / wider patches) requires the "
-                             "XLA path — set solverBackend to auto or xla")
+        if self.solverBackend == "triton" and not self.triton_supported():
+            raise ValueError(
+                "solverBackend=triton implements bilinear 'sampled' "
+                "gradients without patchWarp under 'mean'/'off' "
+                "normalization only; set solverBackend to auto or xla")
         if self.refinementLevel >= self.pyramidLevels:
             raise ValueError("refinementLevel must be < pyramidLevels")
         if self.meshFrames > 1:

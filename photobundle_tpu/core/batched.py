@@ -7,11 +7,10 @@ vmapping the SAME jitted programs the single engine runs. LM runs until
 every window in the batch converges (per-window tolerances still apply —
 converged windows just stop accepting steps).
 
-Measured (tools/bench_batched.py, TPU v5e): a single KITTI-scale window
-already saturates the chip, so single-chip batching is throughput-neutral
-(step time scales ~linearly with B). The batch axis pays off (a) for many
-SMALL windows (dispatch amortization) and (b) sharded over a 'windows'
-mesh axis where each window gets its own chip (parallel/sharded.py
+Whether one card gains from batching KITTI-scale windows is not measured
+yet (tools/bench_batched.py times it). The batch axis is meant for (a)
+many SMALL windows (dispatch amortization) and (b) a 'windows' mesh axis
+where each window gets its own card (parallel/sharded.py
 make_batched_sharded_solver) — this class is the state-management layer
 for both.
 

@@ -1,6 +1,6 @@
 """Levenberg-Marquardt trust-region loop, fully inside `lax.while_loop`.
 
-TPU-native replacement for Ceres' LEVENBERG_MARQUARDT trust region
+JAX replacement for Ceres' LEVENBERG_MARQUARDT trust region
 (reference: pb:src/photobundle.cc `ceres::Solve`; SURVEY.md section 3.3 hot
 loop no. 3). One LM iteration = one traced program: evaluate residuals +
 Jacobians, Schur-eliminate points, solve the reduced camera system, test the
@@ -169,7 +169,9 @@ def lm_solve(
 ):
     """Run LM to convergence. Returns (t_wc, x_world, LMStats).
 
-    `reduce_fn(tree) -> tree` is the simple cross-shard reduction hook:
+    `backend` is the sampling path of every evaluation ('xla' or 'triton',
+    see residuals.evaluate_compressed; callers resolve it with
+    PBAConfig.resolve_backend). `reduce_fn(tree) -> tree` is the simple cross-shard reduction hook:
     identity on a single chip, `jax.lax.psum(..., 'points')` inside
     `shard_map` (parallel/sharded.py). For the 2-D ('frames', 'points')
     layout pass `shard_ctx` instead (see ShardCtx): `t_wc` stays the FULL
@@ -193,58 +195,6 @@ def lm_solve(
             return t
         return jax.lax.dynamic_slice_in_dim(t, sc.frame_offset, w_local, 0)
 
-    # Sampling context (image panels, 2D descriptors) is loop-invariant —
-    # build once, reuse in every iteration's eval and cost passes.
-    eval_ctx = None
-    point_order = None
-    if backend == "pallas":
-        from .residuals import make_pallas_ctx
-
-        pr = (int(round(offsets.shape[0] ** 0.5)) - 1) // 2
-        if patch_warp is not None and gradient_mode == "sampled":
-            ctx_mode = "scaled"     # warped-grid gather (patchWarp='scale')
-        elif gradient_mode == "bicubic":
-            ctx_mode = "bicubic"
-        else:
-            ctx_mode = "sampled"
-        eval_ctx = make_pallas_ctx(channels, grads, patch, pr,
-                                   mode=ctx_mode)
-
-        # Sorted dispatch (round-4 verdict task 4) — MEASURED AND REFUTED,
-        # default OFF (PB_SORTED_DISPATCH=1 re-runs the experiment; the
-        # mechanism stays bitwise-pinned in test_patch_stats). Feeding the
-        # packed kernel points in (panel, y-row) order makes a 65k group
-        # want only ~2.06 distinct row windows (ideal 3.4x load elision,
-        # benchlogs/r5_sorted_dispatch.log) — but every in-kernel sharing
-        # mechanism costs more than the loads it saves: the lax.cond
-        # elision chain runs 0.64x (scalar branches ~7 ns each), and the
-        # branch-free superwindow + dynamic-sublane-roll op mix is also
-        # slower than per-observation loads (ablate SET4, r5_ablate_
-        # superwindow.log: loads-only 2.03 vs 1.71 ms). The (win, 128)
-        # VMEM load is issue-slot-cheap, not bandwidth-bound; nothing
-        # beats just issuing it. See BASELINE.md "Sorted dispatch".
-        import os as _os
-
-        _sd = _os.environ.get("PB_SORTED_DISPATCH", "0")
-        n_pts = x_world.shape[0]
-        if (eval_ctx[0] == "sampled" and not frames_sharded
-                and _sd == "1"):
-            from ..geometry import camera as cam_mod
-            from ..ops import patch_warp as pw_mod
-
-            panels0 = eval_ctx[1]
-            n_pan, img_h = panels0.shape[2], panels0.shape[3]
-            mid = w_local // 2
-            t_cw = se3.se3_inverse(t_wc[mid])
-            y_mid = x_world @ t_cw[:3, :3].T + t_cw[:3, 3]
-            uv_mid, in_front = cam_mod.project(cam, y_mid)
-            y0k, pank, _ = pw_mod.dispatch_geometry(
-                uv_mid[:, 0], uv_mid[:, 1], img_h, n_pan, pr)
-            key = jnp.where(in_front & obs_mask[:, mid],
-                            pank * img_h + y0k, n_pan * img_h)
-            point_order = residuals_mod.sorted_dispatch_order(
-                key.astype(jnp.int32), n_pts, pr)
-
     def eval_stats(t, x):
         # patch_warp = (mode, ref_slot GLOBAL): the warp factors are
         # self-consistent functions of the CURRENT iterate, recomputed at
@@ -259,11 +209,9 @@ def lm_solve(
         return evaluate_compressed(cam, slice_frames(t), x, patch, channels,
                                    grads, obs_mask, offsets, huber_delta,
                                    gradient_mode, depth_prior=depth_prior,
-                                   backend=backend, ctx=eval_ctx,
-                                   normalize=normalize,
+                                   backend=backend, normalize=normalize,
                                    robust_kind=robust_kind,
-                                   patch_warp=pw,
-                                   point_order=point_order)
+                                   patch_warp=pw)
 
     # Relative-pose motion prior (no reference counterpart): anchors each
     # consecutive window pair's relative pose to its initialization,
@@ -354,12 +302,8 @@ def lm_solve(
         # Gauss-Newton system. Halves the sampling work vs the classic
         # eval-then-test structure at identical numerics.
         res = st.res
-        # Assembly stays on the XLA path by design: hardware breakdowns
-        # (benchlogs/r4b_breakdown_*.log) measured its differential cost at
-        # ~0 ms — XLA fuses it into the eval — so round 3's fused Mosaic
-        # assembly kernel was deleted (BASELINE.md "Fused assembly").
-        eq = schur.build_normal_equations_compressed(
-            res, use_prior=depth_prior is not None)
+        # Normal-equation assembly is plain XLA (core/schur.py).
+        eq = schur.build_normal_equations_compressed(res)
         # Global assembly (see ShardCtx): point blocks summed over frames,
         # pose blocks summed over points then gathered over frames, the
         # point-pose coupling gathered over frames (axis 1). With the

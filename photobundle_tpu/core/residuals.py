@@ -1,6 +1,6 @@
 """Photometric residuals and analytic Jacobians — the innermost hot path.
 
-TPU-native replacement for the reference's Ceres autodiff cost functor
+JAX replacement for the reference's Ceres autodiff cost functor
 (`AutoDiffCostFunction<DescriptorError, DYNAMIC, 6, 3>` over a
 `BiCubicInterpolator`; pb:src/photobundle.cc, SURVEY.md section 3.4). The
 reference evaluates residuals point-by-point inside Ceres with autodiff; here
@@ -16,15 +16,15 @@ T_wc[f], patch offsets {o_k}:
     s_ck   = I_c(u + o_k)                          (bilinear sample)
     r_ck   = (s_ck - mean_k s_ck) - d_ck           (brightness-normalized)
 
-Jacobian structure — the TPU key fact: patches are fronto-parallel, so every
+Jacobian structure — the key fact: patches are fronto-parallel, so every
 pixel of a patch moves with the same projected displacement du/dtheta. The
 per-observation Jacobian therefore FACTORS:
 
     dr/dtheta = Gc @ A,   Gc = patch-mean-centered sampled gradients (D, 2)
                           A  = du/d[pose(6) | point(3)]          (2, 9)
 
-so residual/Jacobian/Gauss-Newton assembly is pure batched matmul (MXU food)
-instead of per-pixel autodiff. Pose Jacobians use the right-multiplicative
+so residual/Jacobian/Gauss-Newton assembly is batched dense algebra instead
+of per-pixel autodiff. Pose Jacobians use the right-multiplicative
 local parameterization T <- T @ exp(xi) (geometry/se3.py):
 
     dy/drho = -I,  dy/domega = [y]_x,  dy/dX = R_wc^T
@@ -51,13 +51,10 @@ the Schur/LM machinery is untouched. Disabled when weight == 0.
 
 from __future__ import annotations
 
-import functools
-import os
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..geometry import camera as cam_mod
 from ..geometry import se3
@@ -123,7 +120,7 @@ def _normalize_sampled(s, g, mode: str):
       affine: ŝ = c / n, n = sqrt(Σc²+ε²), dŝ/dθ = (G_c - ŝ(ŝᵀG_c)) / n
 
     The affine form keeps the rank-2 J = G·A factoring (G_eff is still
-    (D, 2)), so the compressed/Pallas statistics pipeline is unchanged.
+    (D, 2)), so the compressed statistics pipeline is unchanged.
     s: (..., C, P); g: (..., C, P, 2) or None (cost-only pass).
     """
     if mode == "off":
@@ -146,11 +143,10 @@ def _observation_geometry(cam, t_wc_f, x_world):
     """Per-(frame) geometry for all points: camera point y, pixel u, and the
     A = du/d[pose|point] (2, 9) chain. Shapes: x_world (N, 3).
 
-    All tiny matmuls are unrolled into broadcast multiplies: per-point
-    (3,3)/(2,3) products on the MXU would run at bf16 operand precision by
-    default — at world-scale coordinates that quantizes camera-frame points
-    by ~0.1 m (see photobundle_tpu/__init__.py) — and at forced-f32 MXU
-    precision they cost 6 passes. The VPU form is exact f32 AND fast."""
+    All tiny matmuls are unrolled into broadcast multiplies: exact f32
+    elementwise arithmetic whatever the matmul precision setting (see
+    photobundle_tpu/__init__.py), and no batched-matmul launch per
+    point."""
     t_cw = se3.se3_inverse(t_wc_f)
     r_cw = t_cw[:3, :3]
     # y = R_cw x + t_cw — unrolled (9 fused multiplies on (N,) lanes).
@@ -167,10 +163,9 @@ def _observation_geometry(cam, t_wc_f, x_world):
     return y, uv, in_front, jnp.concatenate([a_pose, a_point], axis=-1)  # A: (N, 2, 9)
 
 
-# Shared with ops/patch_warp (the scaled gather kernel sizes its load
-# window from the same clamp the warp model applies) via the dependency-
-# free constants module — ops/patch_warp stays a lazy pallas-path import.
-from ..constants import PATCH_SCALE_MIN, PATCH_SCALE_MAX  # noqa: E402
+# The patch-grid warp clamp (cfg.patchWarp — see patch_warp_frame).
+PATCH_SCALE_MIN = 0.5
+PATCH_SCALE_MAX = 2.0
 
 
 def patch_warp_ref_geometry(t_wc, x_world, ref_slot):
@@ -446,10 +441,9 @@ class CompressedResiduals(NamedTuple):
     row does not share the A chain, so it is carried as an explicit rank-1
     (jp, rp) pair (whitened by sqrt(w)).
 
-    LAYOUT: the POINT axis is MINOR (last). TPU tiles the last two dims of
-    every array to (8, 128); point-major layouts with tiny trailing dims
-    ((N, W, 2, 9) etc.) pad each block to a full tile — a measured 10x
-    slowdown of normal-equation assembly (see core/schur.py docstring)."""
+    LAYOUT: the POINT axis is MINOR (last), so every statistic is a dense
+    (W, N) plane and the normal-equation assembly (core/schur.py) runs as
+    fused elementwise reductions over contiguous memory."""
 
     a: jax.Array        # (W, 2, 9, N) du/d[pose(6) | point(3)]
     gtg: jax.Array      # (W, 2, 2, N) whitened gradient Gram
@@ -461,175 +455,13 @@ class CompressedResiduals(NamedTuple):
     n_residuals: jax.Array
 
 
-def _prior_terms(f, t_wc_f, y, valid, depth_prior, dtype):
-    """Inverse-depth prior row for frame f: (rp (N,), jp (N, 9))."""
-    n = y.shape[0]
-    ref_slot, q_seed, wd = depth_prior
-    z = jnp.maximum(y[:, 2], 1e-6)
-    m = ((ref_slot == f) & valid).astype(dtype)
-    rp = wd * (1.0 / z - q_seed) * m
-    coef = (-wd / (z * z)) * m
-    t_cw = se3.se3_inverse(t_wc_f)
-    r_cw = t_cw[:3, :3]
-    dz_dpose = jnp.concatenate(
-        [jnp.broadcast_to(-jnp.eye(3, dtype=dtype)[2], (n, 3)),
-         se3.hat(y)[:, 2, :]], axis=-1)                   # (N, 6)
-    dz_dx = jnp.broadcast_to(r_cw[2], (n, 3))             # (N, 3)
-    jp = coef[:, None] * jnp.concatenate([dz_dpose, dz_dx], -1)
-    return rp, jp
-
-
-def make_pallas_ctx(channels, grads, patch, patch_radius: int,
-                    mode: str = "sampled"):
-    """Prebuilt sampling context for the Pallas backend: image panels
-    (ops/patch_warp). Build ONCE per solve and pass to evaluate_compressed
-    — images are loop-invariant across LM iterations and the panel
-    relayout is not free.
-
-    mode='sampled': lane-interleaved (value, gx, gy) panels for the
-    bilinear warp kernel. mode='bicubic': value-only panels; the bicubic
-    kernel computes exact Catmull-Rom surface gradients in-kernel (Ceres
-    BiCubicInterpolator parity). mode='scaled': wide interleaved panels for
-    the per-observation warped-grid gather (cfg.patchWarp='scale')."""
-    from ..ops import patch_warp as pw_mod
-
-    ps = int(round(patch.shape[2] ** 0.5))
-    pr = (ps - 1) // 2
-    if mode == "bicubic":
-        return ("bicubic", pw_mod.build_value_panels(channels, pr))
-    if mode == "scaled":
-        return ("scaled", pw_mod.build_interleaved_panels(
-            channels, grads, pr, win_px=pw_mod.scaled_win_px(pr)))
-    return ("sampled", pw_mod.build_interleaved_panels(channels, grads, pr))
-
-
-@functools.lru_cache(maxsize=None)
-def _packed_masks(patch_radius: int):
-    """Lane-selection matrices for the packed kernel layout (numpy 0/1).
-
-    Returns (128, 3G): column c*G + j selects plane c's lanes
-    (wl*j + 3k + c, k < ps) of observation j — exactly the lanes of
-    ops/patch_warp.warp_patches_grouped's output that carry data."""
-    from ..ops import patch_warp as pw_mod
-
-    ps = 2 * patch_radius + 1
-    wl = 3 * (ps + 1)
-    g = pw_mod.packed_group_size(patch_radius)
-    m3 = np.zeros((pw_mod.PANEL_W, 3 * g), np.float32)
-    for j in range(g):
-        for k in range(ps):
-            for c in range(3):
-                m3[wl * j + 3 * k + c, c * g + j] = 1.0
-    return m3
-
-
-def _pack_descriptors(patch, patch_radius: int, n_pad: int):
-    """(N, C, P) reference descriptors -> the packed lane layout
-    (C, GPF, ps, 128): descriptor pixel (py, px) of point j*GPF + g lands
-    at sublane py, lane wl*j + 3*px (the VALUE lane) of group g;
-    gradient/tail lanes are zero. Loop-invariant across LM iterations
-    (XLA hoists it out of the solver while_loop)."""
-    from ..ops import patch_warp as pw_mod
-
-    n, c, p = patch.shape
-    ps = int(round(p ** 0.5))
-    wl = 3 * (ps + 1)
-    g = pw_mod.packed_group_size(patch_radius)
-    gpf = n_pad // g
-    pd = jnp.pad(patch, ((0, n_pad - n), (0, 0), (0, 0)))
-    pd = pd.reshape(g, gpf, c, ps, ps)                     # [j, g, c, py, px]
-    pd = jnp.moveaxis(pd, (2, 1, 3), (0, 1, 2))            # (C, GPF, py, j, px)
-    z = jnp.zeros(pd.shape + (3,), pd.dtype).at[..., 0].set(pd)
-    z = z.reshape(c, gpf, ps, g, 3 * ps)
-    z = jnp.pad(z, ((0, 0), (0, 0), (0, 0), (0, 0), (0, wl - 3 * ps)))
-    z = z.reshape(c, gpf, ps, g * wl)
-    return jnp.pad(
-        z, ((0, 0), (0, 0), (0, 0), (0, pw_mod.PANEL_W - g * wl)))
-
-
-def sorted_dispatch_order(key, n: int, patch_radius: int):
-    """Stale-sort dispatch for the packed warp kernel (round-4 verdict
-    task 4: point-sorted-by-panel dispatch).
-
-    `key` (N,) int32 sorts points by the (panel, image-row) window the
-    kernel will load for a representative window frame (see
-    patch_warp.dispatch_geometry); consecutive sorted points then land in
-    the same lane-packed GROUP, whose loads the sort_reuse kernel variant
-    elides when identical. The sort is computed ONCE per solve from the
-    initial iterate ("stale"): geometry moves subpixel-to-few-pixel per LM
-    step, so staleness only costs reuse rate, never correctness — and a
-    per-iteration argsort would cost more than the elision saves.
-
-    Returns (feed (N_pad,) int32, unscatter (N,) int32, row_valid (N_pad,)
-    bool): kernel input row n must hold original point feed[n]; original
-    point q's statistics come back at packed row unscatter[q]; row_valid
-    masks the padding rows. Derivation: the packed layout assigns input
-    row n to lane j = n // GPF of group g = n % GPF; we want lane j of
-    group g to hold sorted rank r = g*G + j, i.e. row n holds rank
-    (n % GPF)*G + n // GPF, and rank r lives at row (r % G)*GPF + r // G.
-    """
-    from ..ops import patch_warp as pw_mod
-
-    g, _, gpf, n_pad = pw_mod.packed_geometry(n, patch_radius)
-    perm = jnp.argsort(key)                        # rank -> original id
-    rows = jnp.arange(n_pad)
-    rank_of_row = (rows % gpf) * g + rows // gpf
-    row_valid = rank_of_row < n
-    feed = jnp.where(row_valid, perm[jnp.clip(rank_of_row, 0, n - 1)], 0)
-    inv = jnp.argsort(perm)                        # original id -> rank
-    unscatter = (inv % g) * gpf + inv // g         # original id -> row
-    return (feed.astype(jnp.int32), unscatter.astype(jnp.int32), row_valid)
-
-
-def _grouped_stats(packed, n, n_pad, patch_radius: int, norm_mode: str,
-                   order=None):
-    """Gauss-Newton sufficient statistics straight from the packed kernel
-    layout — the large-N production path (round-3 verdict task 1).
-
-    The alternative (unpack to (N, W, C, P), transpose point-minor, reduce)
-    writes ~56x-padded tiles and pays two relayouts; at 65 536 x 5 that is
-    the measured 70x-above-HBM-floor evaluation. Here the reductions run
-    on the packed (.., ps, 128) tiles directly: plane separation is two
-    static lane rolls (lane wl*j+3k holds v-d, +1 d/dx, +2 d/dy), and the
-    per-observation patch sums are ONE 128->G mask-matrix contraction on
-    the MXU emitting g-minor (dense) outputs.
-
-    `packed` (C, W, GPF, ps, 128) must come from the kernel WITH in-kernel
-    descriptor subtraction and (for norm_mode='mean') in-kernel centering:
-    value lanes hold the final residual r, gradient lanes the centered
-    gradients — so the statistics here are plain products + segment sums
-    with no cancellation-prone mean folding.
-
-    Returns gtg (W, 2, 2, N), gtr (W, 2, N), rnorm2 (W, N) — un-whitened,
-    same contract as the unpack path's pre-whitening statistics."""
-    del norm_mode  # normalization is applied in-kernel
-    c, w, gpf, six, _ = packed.shape
-    m3 = jnp.asarray(_packed_masks(patch_radius))          # (128, 3G)
-    g = m3.shape[1] // 3
-    q = jnp.einsum("cwgsl,lj->cswjg", packed, m3[:, :g])   # (C, 6, W, G, GPF)
-    seg = jnp.sum(q, axis=0).reshape(6, w, n_pad)
-    if order is not None:
-        # Sorted dispatch: row n holds a sort-rank point; gather each
-        # ORIGINAL point's row (see sorted_dispatch_order).
-        seg = jnp.take(seg, order, axis=2)                 # (6, W, N)
-    else:
-        seg = seg[:, :, :n]
-    g00, g01, g11, gxr, gyr, rr = seg
-    gtg = jnp.stack([jnp.stack([g00, g01], axis=1),
-                     jnp.stack([g01, g11], axis=1)], axis=1)  # (W, 2, 2, N)
-    gtr = jnp.stack([gxr, gyr], axis=1)                       # (W, 2, N)
-    return gtg, gtr, rr
-
-
 def _observation_geometry_pm(cam, t_wc, x_world):
     """Point-MINOR observation geometry for all window frames at once.
 
-    The vmapped per-frame `_observation_geometry` builds (N, 2, 9)/(N, 3, 6)
-    intermediates whose tiny trailing dims tile-pad to (8, 128) — at
-    65 536 x 5 that is >1 GB of physical traffic for 23 MB of data (the
-    same layout lesson as CompressedResiduals). Here every quantity is a
-    small stack of (W, N) lane-planes and the A-chain is written closed
-    form (zero entries of jproj/hat dropped).
+    The vmapped per-frame `_observation_geometry` builds point-major
+    (N, 2, 9)/(N, 3, 6) intermediates and transposes them at the end. Here
+    every quantity is a small stack of dense (W, N) planes and the A-chain
+    is written closed form (zero entries of jproj/hat dropped).
 
     Returns y (W, 3, N), uv (W, 2, N), in_front (W, N), a (W, 2, 9, N),
     r_cw (W, 3, 3)."""
@@ -673,8 +505,8 @@ def _observation_geometry_pm(cam, t_wc, x_world):
 
 def _prior_terms_pm(r_cw, y, valid, depth_prior, dtype):
     """Inverse-depth prior rows, point-minor: rp (W, N), jp (W, 9, N).
-    Same math as `_prior_terms` (dz/dpose = [-e_z | hat(y) row 2],
-    dz/dX = R_cw row 2)."""
+    Same math as the per-frame prior in `evaluate_compressed`
+    (dz/dpose = [-e_z | hat(y) row 2], dz/dX = R_cw row 2)."""
     w = y.shape[0]
     ref_slot, q_seed, wd = depth_prior
     z = jnp.maximum(y[:, 2], 1e-6)                         # (W, N)
@@ -693,178 +525,60 @@ def _prior_terms_pm(r_cw, y, valid, depth_prior, dtype):
     return rp, jp
 
 
-def _evaluate_compressed_pallas(cam, t_wc, x_world, patch, channels, grads,
-                                obs_mask, offsets, huber_delta: float,
-                                depth_prior: tuple | None,
-                                interpret: bool,
-                                mode: str = "sampled",
-                                ctx=None,
-                                normalize: bool = True,
-                                robust_kind: str = "huber",
-                                patch_warp: tuple | None = None,
-                                point_order=None) -> CompressedResiduals:
-    """Kernel-backed path: ops/patch_warp samples (value, gx, gy) patches —
-    the one op XLA gathers ruin — and the stat algebra (means, Grams,
-    Huber) runs as dense XLA, identical to the gather path's math.
-    mode='bicubic' routes sampling through the Catmull-Rom kernel with
-    exact in-kernel surface gradients (Ceres parity). patch_warp =
-    ('scale', z_ref, r_wc_ref) routes through the scaled gather kernel
-    (warped grid, cfg.patchWarp='scale'); requires mode='sampled'."""
-    from ..ops import patch_warp as pw_mod
+TRITON_MODES = ("sampled",)
+
+
+def triton_supports(gradient_mode: str, normalize, patch_warp) -> bool:
+    """Whether the fused sampler (ops/triton_stats) implements this mode:
+    fixed-grid bilinear 'sampled' gradients under 'mean' or 'off'
+    normalization. Bicubic, exact-surface gradients, patch warps and
+    'affine' normalization run on the XLA path."""
+    return (gradient_mode in TRITON_MODES and patch_warp is None
+            and patches_mod.norm_mode(normalize) in ("mean", "off"))
+
+
+def _evaluate_compressed_triton(cam, t_wc, x_world, patch, channels, grads,
+                                obs_mask, huber_delta, depth_prior,
+                                normalize, robust_kind, interpret):
+    """evaluate_compressed with sampling, descriptor subtraction, centring
+    and the six per-observation sums fused in one kernel
+    (ops/triton_stats); the geometry, validity and robust weights are the
+    same point-minor XLA algebra as the other path's."""
+    from ..ops import triton_stats
 
     n, w = obs_mask.shape
-    c = patch.shape[1]
-    pr = (int(round(patch.shape[2] ** 0.5)) - 1) // 2   # P = (2R+1)^2
+    pr = (int(round(patch.shape[2] ** 0.5)) - 1) // 2
     use_prior = depth_prior is not None and depth_prior[2] > 0.0
     img_h, img_w = channels.shape[-2], channels.shape[-1]
-    # Full-support margins: bilinear needs 2x2 per sample, bicubic 4x4
-    # (one extra pixel on each side — matches interp.bicubic_with_grad's
-    # per-sample validity over the whole patch).
-    if mode == "bicubic":
-        lo, hi = pr + 1, 3 + pr
-    else:
-        lo, hi = pr, 2 + pr
-
-    # Point-minor geometry for every frame at once (see
-    # _observation_geometry_pm for why not the vmapped per-frame form).
-    y_pm, uv, in_front, a, r_cw = _observation_geometry_pm(cam, t_wc,
-                                                           x_world)
-    rho = None
-    if patch_warp is not None:
-        if mode != "sampled" or patch_warp[0] != "scale":
-            raise ValueError("pallas patch_warp supports mode='sampled' "
-                             "with patchWarp='scale' only")
-        _, z_ref, _ = patch_warp
-        z_f = jnp.maximum(y_pm[:, 2], 1e-6)                # (W, N)
-        rho = jnp.where(z_ref[None] > 0,
-                        jnp.clip(z_ref[None] / z_f,
-                                 PATCH_SCALE_MIN, PATCH_SCALE_MAX), 1.0)
-        # Warped support: the patch extends rho*pr from the center, and
-        # the gather window pays one clamp-free guard pixel per side.
-        ext = rho * pr
-        in_bounds = ((uv[:, 0] >= 1 + ext) & (uv[:, 0] <= img_w - 2 - ext) &
-                     (uv[:, 1] >= 1 + ext) & (uv[:, 1] <= img_h - 2 - ext))
-    else:
-        in_bounds = ((uv[:, 0] >= lo) & (uv[:, 0] <= img_w - hi) &
-                     (uv[:, 1] >= lo) & (uv[:, 1] <= img_h - hi))
+    y_pm, uv, in_front, a, r_cw = _observation_geometry_pm(cam, t_wc, x_world)
+    # Full bilinear support of every patch pixel — the same float sums the
+    # XLA path tests (interp.bilinear on u + o_k).
+    u, v = uv[:, 0], uv[:, 1]
+    in_bounds = ((u + (-pr) >= 0) & (u + pr <= img_w - 1)
+                 & (v + (-pr) >= 0) & (v + pr <= img_h - 1))
     valid = obs_mask.T & in_front & in_bounds              # (W, N)
     if use_prior:
-        rp, jp = _prior_terms_pm(r_cw, y_pm, valid, depth_prior,
-                                 uv.dtype)                 # (W, N), (W, 9, N)
+        rp, jp = _prior_terms_pm(r_cw, y_pm, valid, depth_prior, uv.dtype)
     else:
         rp = jnp.zeros((w, n), uv.dtype)
         jp = jnp.zeros((w, 9, n), uv.dtype)
-
-    want_mode = "scaled" if rho is not None else mode
-    if ctx is None:
-        ctx = make_pallas_ctx(channels, grads, patch, pr, mode=want_mode)
-    ctx_mode, panels = ctx
-    if ctx_mode != want_mode:
-        raise ValueError(f"pallas ctx built for mode '{ctx_mode}', "
-                         f"evaluation requested '{want_mode}'")
-    uv_nm = jnp.transpose(uv, (2, 0, 1))                   # (N, W, 2)
-    valid_nm = valid.T                                     # (N, W)
-    norm_mode = patches_mod.norm_mode(normalize)
-    use_grouped = (mode == "sampled" and norm_mode in ("mean", "off")
-                   and os.environ.get("PB_GROUPED_STATS", "1") != "0")
-    if use_grouped and rho is not None:
-        # Warped-grid production path: the fused scaled kernel emits the
-        # SAME packed-stats layout as the fixed kernel (no unpack — the
-        # dense alternative pays ~68x tile padding, see
-        # warp_patches_grouped_scaled). Sorted dispatch does not apply
-        # (refuted for the fixed kernel; never built here).
-        _, _, _, n_pad = pw_mod.packed_geometry(n, pr)
-        dpack = _pack_descriptors(patch, pr, n_pad)
-        packed, n_pad = pw_mod.warp_patches_grouped_scaled(
-            panels, uv_nm, rho.T, valid_nm, pr, interpret=interpret,
-            dpack=dpack, center=(norm_mode == "mean"), fuse_stats=True)
-        gtg, gtr, rnorm2 = _grouped_stats(packed, n, n_pad, pr, norm_mode)
-    elif use_grouped:
-        # Production path: packed kernel (with in-kernel descriptor
-        # subtraction) + grouped stats, no unpack relayout (round-3
-        # verdict task 1 — see _grouped_stats).
-        _, _, _, n_pad = pw_mod.packed_geometry(n, pr)
-        if point_order is not None:
-            # Sorted dispatch (see sorted_dispatch_order): feed the kernel
-            # points in (panel, y-row) order so groups share row windows
-            # and the sort_reuse kernel elides the duplicate loads. The
-            # feed gathers are (N, W)-sized (cheap); the descriptor pack
-            # is loop-invariant (feed is stale per-solve) so XLA hoists it
-            # out of the LM while_loop like the unsorted pack.
-            feed, unscatter, row_valid = point_order
-            uv_s = jnp.take(uv_nm, feed, axis=0)           # (N_pad, W, 2)
-            valid_s = jnp.take(valid_nm, feed, axis=0) & row_valid[:, None]
-            dpack = _pack_descriptors(jnp.take(patch, feed, axis=0),
-                                      pr, n_pad)
-            packed, _ = pw_mod.warp_patches_grouped(
-                panels, uv_s, valid_s, pr, interpret=interpret,
-                dpack=dpack, center=(norm_mode == "mean"), fuse_stats=True,
-                sort_reuse=True)
-            gtg, gtr, rnorm2 = _grouped_stats(packed, n, n_pad, pr,
-                                              norm_mode, order=unscatter)
-        else:
-            dpack = _pack_descriptors(patch, pr, n_pad)
-            packed, n_pad = pw_mod.warp_patches_grouped(
-                panels, uv_nm, valid_nm, pr, interpret=interpret,
-                dpack=dpack, center=(norm_mode == "mean"), fuse_stats=True)
-            gtg, gtr, rnorm2 = _grouped_stats(packed, n, n_pad, pr,
-                                              norm_mode)
-    else:
-        if rho is not None:
-            s, gx, gy = pw_mod.warp_patches_scaled(
-                panels, uv_nm, rho.T, valid_nm, pr, interpret=interpret)
-        elif mode == "bicubic":
-            s, gx, gy = pw_mod.warp_patches_bicubic(
-                panels, uv_nm, valid_nm, pr, interpret=interpret)
-        else:
-            s, gx, gy = pw_mod.warp_patches(
-                panels, uv_nm, valid_nm, pr, interpret=interpret)
-        # Stats in the point-minor layout (see CompressedResiduals
-        # docstring): every reduction runs over packed (W, D, N) planes.
-        s = jnp.transpose(s, (1, 2, 3, 0))                 # (W, C, P, N)
-        gx = jnp.transpose(gx, (1, 2, 3, 0))
-        gy = jnp.transpose(gy, (1, 2, 3, 0))
-        patch_t = jnp.transpose(patch, (1, 2, 0))          # (C, P, N)
-        # Same normalization algebra as _normalize_sampled, in this path's
-        # point-minor (W, C, P, N) layout (patch axis = 2).
-        if norm_mode != "off":
-            s = s - jnp.mean(s, axis=2, keepdims=True)
-            gx = gx - jnp.mean(gx, axis=2, keepdims=True)
-            gy = gy - jnp.mean(gy, axis=2, keepdims=True)
-        if norm_mode == "affine":
-            eps = patches_mod.AFFINE_NORM_EPS
-            nn = jnp.sqrt(jnp.sum(s * s, axis=2, keepdims=True) + eps * eps)
-            s = s / nn                                     # ŝ
-            gx = (gx - s * jnp.sum(s * gx, axis=2, keepdims=True)) / nn
-            gy = (gy - s * jnp.sum(s * gy, axis=2, keepdims=True)) / nn
-        r = (s - patch_t[None]).reshape(w, -1, n)          # (W, D, N)
-        gx_c = gx.reshape(w, -1, n)
-        gy_c = gy.reshape(w, -1, n)
-        g00 = jnp.sum(gx_c * gx_c, axis=1)                 # (W, N)
-        g01 = jnp.sum(gx_c * gy_c, axis=1)
-        g11 = jnp.sum(gy_c * gy_c, axis=1)
-        gtg = jnp.stack([jnp.stack([g00, g01], axis=1),
-                         jnp.stack([g01, g11], axis=1)], axis=1)  # (W,2,2,N)
-        gtr = jnp.stack([jnp.sum(gx_c * r, axis=1),
-                         jnp.sum(gy_c * r, axis=1)], axis=1)      # (W, 2, N)
-        rnorm2 = jnp.sum(r * r, axis=1)                           # (W, N)
-
-    rnorm2 = rnorm2 + rp * rp
-    vf = valid.astype(gtg.dtype)                              # (W, N)
-    rnorm2 = rnorm2 * vf
+    g00, g01, g11, gxr, gyr, rnorm2 = triton_stats.patch_stats(
+        channels, grads, uv, patch, radius=pr,
+        center=(patches_mod.norm_mode(normalize) == "mean"),
+        interpret=interpret)
+    gtg = jnp.stack([jnp.stack([g00, g01], axis=1),
+                     jnp.stack([g01, g11], axis=1)], axis=1)  # (W, 2, 2, N)
+    gtr = jnp.stack([gxr, gyr], axis=1)                       # (W, 2, N)
+    vf = valid.astype(gtg.dtype)
+    rnorm2 = (rnorm2 + rp * rp) * vf
     w_huber, rho = robust_weight(rnorm2, huber_delta, robust_kind)
     wv = w_huber * vf
     sw = jnp.sqrt(w_huber) * vf
     return CompressedResiduals(
-        a=a,                                                  # (W, 2, 9, N)
-        gtg=gtg * wv[:, None, None, :],
-        gtr=gtr * wv[:, None, :],
-        jp=jp * sw[:, None, :],
-        rp=rp * sw,
-        valid=valid_nm,
+        a=a, gtg=gtg * wv[:, None, None, :], gtr=gtr * wv[:, None, :],
+        jp=jp * sw[:, None, :], rp=rp * sw, valid=valid.T,
         cost=0.5 * jnp.sum(rho * vf),
-        n_residuals=jnp.sum(valid.astype(jnp.int32)),
-    )
+        n_residuals=jnp.sum(valid.astype(jnp.int32)))
 
 
 def evaluate_compressed(cam, t_wc, x_world, patch, channels, grads, obs_mask,
@@ -873,42 +587,31 @@ def evaluate_compressed(cam, t_wc, x_world, patch, channels, grads, obs_mask,
                         depth_prior: tuple | None = None,
                         backend: str = "xla",
                         interpret: bool = False,
-                        ctx=None,
                         normalize: bool = True,
                         robust_kind: str = "huber",
-                        patch_warp: tuple | None = None,
-                        point_order=None) -> CompressedResiduals:
+                        patch_warp: tuple | None = None) -> CompressedResiduals:
     """Like `evaluate` but returns the factored Gauss-Newton statistics.
 
     Produces bitwise-equivalent normal equations (see
     schur.build_normal_equations_compressed) at a fraction of the memory
     traffic. This is the production path; `evaluate` remains as the oracle.
 
-    backend='pallas' routes sampling through the fused TPU kernels
-    (ops/patch_warp): gradient_mode='sampled' uses the bilinear warp
-    kernel over interleaved (value, gx, gy) panels; 'bicubic' uses the
-    Catmull-Rom kernel with exact in-kernel surface gradients (Ceres
-    BiCubicInterpolator parity). 'xla' is the portable gather-based path.
+    backend='xla' is the gather-based path for every sampling mode.
+    backend='triton' fuses sampling and the per-observation sums in one GPU
+    kernel (ops/triton_stats) for the modes `triton_supports` lists;
+    `interpret=True` runs that kernel in the Pallas interpreter (tests on a
+    host without a GPU).
     """
-    if backend == "pallas":
-        if gradient_mode not in ("sampled", "bicubic"):
+    if backend == "triton":
+        if not triton_supports(gradient_mode, normalize, patch_warp):
             raise ValueError(
-                "pallas backend implements gradient_mode 'sampled' or "
-                f"'bicubic', not '{gradient_mode}'")
-        if patch_warp is not None and (gradient_mode != "sampled"
-                                       or patch_warp[0] != "scale"):
-            # 'scale' runs on the scaled gather kernel (round-5 verdict
-            # task 5); 'affine' warps each patch row differently in BOTH
-            # axes — a full 2-D gather the window kernels cannot tile —
-            # and stays on the XLA path (cfg.resolve_backend routes it).
-            raise ValueError(
-                "pallas backend implements patchWarp='scale' with "
-                "gradient_mode='sampled' only; use solverBackend=xla")
-        return _evaluate_compressed_pallas(
-            cam, t_wc, x_world, patch, channels, grads, obs_mask, offsets,
-            huber_delta, depth_prior, interpret, mode=gradient_mode,
-            ctx=ctx, normalize=normalize, robust_kind=robust_kind,
-            patch_warp=patch_warp, point_order=point_order)
+                "backend 'triton' implements fixed-grid 'sampled' gradients "
+                "with 'mean'/'off' normalization only; use backend 'xla'")
+        return _evaluate_compressed_triton(
+            cam, t_wc, x_world, patch, channels, grads, obs_mask,
+            huber_delta, depth_prior, normalize, robust_kind, interpret)
+    if backend != "xla":
+        raise ValueError(f"unknown backend '{backend}'")
     n, w = obs_mask.shape
     use_prior = depth_prior is not None and depth_prior[2] > 0.0
 

@@ -1,6 +1,6 @@
 """Gauss-Newton normal equations + Schur complement — the reference's L1.
 
-TPU-native replacement for Ceres' `SPARSE_SCHUR` linear solver with
+JAX replacement for Ceres' `SPARSE_SCHUR` linear solver with
 points-first elimination (reference: pb:src/photobundle.cc solver options;
 SURVEY.md sections 1/3.3). Ceres builds sparse block matrices and runs a
 sparse Schur eliminator on CPU threads. Here the normal equations are built
@@ -10,17 +10,13 @@ algebra:
 
     Hpp  (3, 3, N)    per-point blocks         -> batched closed-form inverse
     Hpc  (W, 3, 6, N) point-pose coupling      -> unrolled fused multiplies
-    Hcc  (W, 6, 6)    pose diagonal blocks     -> one MXU contraction over 2N
-    S    (W, W, 6, 6) reduced camera system    -> one MXU contraction over 3N
+    Hcc  (W, 6, 6)    pose diagonal blocks     -> one contraction over 3N
+    S    (W, W, 6, 6) reduced camera system    -> one contraction over 3N
     solve 6W x 6W     dense Cholesky (W is the sliding window: tiny)
 
-LAYOUT (round-2 redesign): every big per-point tensor keeps the POINT axis
-MINOR (last). TPU arrays tile their last two dims to (8 sublanes, 128
-lanes); the round-1 layout (N, W, 9, 9) padded each tiny trailing block to
-a full tile — a 14-100x HBM blowup that made normal-equation assembly cost
-1.35 ms/iter at 4096x5 (measured, tools/bench_lm_breakdown.py). With N on
-the lane axis every tensor is fully packed and the same math runs at
-memory speed.
+LAYOUT: every big per-point tensor keeps the POINT axis MINOR (last), so
+each is a stack of dense (N,) planes and the per-point algebra runs as
+fused elementwise work over contiguous memory.
 
 Invalid observations contribute exact zeros (residuals are pre-masked), so
 no index lists or scatters are needed — this is what makes the same code
@@ -91,9 +87,7 @@ def build_normal_equations(res: Residuals) -> NormalEqDense:
     return NormalEqDense(hpp=hpp, hpc=hpc, hcc=hcc, bp=bp, bc=bc)
 
 
-def build_normal_equations_compressed(
-        res: CompressedResiduals, backend: str = "xla",
-        use_prior: bool = True, interpret: bool = False) -> NormalEq:
+def build_normal_equations_compressed(res: CompressedResiduals) -> NormalEq:
     """Normal equations from the rank-2-factored statistics
     (residuals.evaluate_compressed, point-minor layout): per observation
 
@@ -102,33 +96,22 @@ def build_normal_equations_compressed(
 
     partitioned into Hpp / Hpc / Hcc / bp / bc and summed over frames /
     points. Only the needed blocks are formed (never the full 9x9): the
-    per-point blocks as fused elementwise multiplies over packed (W, N)
-    planes, the pose blocks as one dot_general contracting (2+1)N — MXU
-    food. Identical result to build_normal_equations(evaluate(...)).
-
-    `backend`/`interpret` are accepted for call-site compatibility but the
-    XLA form is the only implementation: a fused Mosaic assembly kernel
-    (round 3's ops/assemble.py) was measured on hardware and DELETED in
-    round 4 — XLA already fuses this phase to ~zero marginal cost
-    (differential cost ~ -0.3 ms at both 16k and 65k points,
-    benchlogs/r4b_breakdown_*.log) and the kernel showed no win at 4096x5
-    (0.652 vs 0.627 ms full-iter). See BASELINE.md "Fused assembly:
-    resolved". use_prior=False skips the jp/rp prior rows (they are exact
-    zeros without an inverse-depth prior; the XLA form multiplies through
-    the zeros, which XLA folds — the flag is kept for call-site clarity)."""
-    del backend, interpret, use_prior
+    per-point blocks as fused elementwise multiplies over dense (W, N)
+    planes, the pose blocks as one dot_general contracting (2+1)N.
+    Identical result to build_normal_equations(evaluate(...)). Without an
+    inverse-depth prior the jp/rp rows are exact zeros and contribute
+    nothing."""
     a, gtg, gtr = res.a, res.gtg, res.gtr          # (W,2,9,N) (W,2,2,N) (W,2,N)
     jp, rp = res.jp, res.rp                        # (W, 9, N) (W, N)
     # ga[w,b,j,n] = sum_a gtg[w,b,a,n] * a[w,a,j,n]
     ga = (gtg[:, :, 0][:, :, None] * a[:, 0][:, None]
           + gtg[:, :, 1][:, :, None] * a[:, 1][:, None])     # (W, 2, 9, N)
 
-    # All blocks as broadcast-multiply-reduce over packed point-minor
-    # planes. NOT einsum/dot_general: a contraction whose OUTPUT keeps the
-    # N axis free lowers as a batched-over-N dot, and XLA transposes the
-    # operands into (padded) point-major batch layouts to do it — measured
-    # ~5x slower than the fused broadcast form.
-    # Pose diagonal blocks (N contracted — einsum = true MXU matmul).
+    # All blocks as broadcast-multiply-reduce over point-minor planes. NOT
+    # einsum/dot_general: a contraction whose OUTPUT keeps the N axis free
+    # lowers as a batched-over-N dot, with the operands transposed into
+    # point-major batch layouts.
+    # Pose diagonal blocks (N contracted — a true matrix product).
     rows_c = jnp.concatenate([a[:, :, :6], jp[:, None, :6]], axis=1)
     cols_c = jnp.concatenate([ga[:, :, :6], jp[:, None, :6]], axis=1)
     hcc = jnp.einsum("wbin,wbjn->wij", rows_c, cols_c)       # (W, 6, 6)
@@ -190,7 +173,8 @@ def inv3x3(m: jax.Array, valid: jax.Array | None = None, eps: float = 1e-12) -> 
 def inv3x3_nlast(m: jax.Array, valid: jax.Array | None = None,
                  eps: float = 1e-12) -> jax.Array:
     """inv3x3 for the (3, 3, N) point-minor layout — every component is a
-    packed (N,) lane vector, so the closed form is 40-odd fused VPU ops."""
+    dense (N,) vector, so the closed form is 40-odd fused elementwise
+    ops."""
     a, b, c = m[0, 0], m[0, 1], m[0, 2]
     d, e, f = m[1, 0], m[1, 1], m[1, 2]
     g, h, i = m[2, 0], m[2, 1], m[2, 2]
@@ -238,11 +222,11 @@ def reduce_camera_system(eq: NormalEq, lam: jax.Array, point_valid: jax.Array,
     w = eq.hcc.shape[0]
     hpp_inv = inv3x3_nlast(_damped_nlast(eq.hpp, lam), point_valid)  # (3,3,N)
     # T[w, i, k, n] = sum_j W_p[i, j, n] Hpc[w, j, k, n] — fused broadcast
-    # multiplies (free-minor-N einsum would transpose to padded layouts).
+    # multiplies (a free-minor-N einsum would transpose to point-major).
     t = jnp.sum(hpp_inv[None, :, :, None] * eq.hpc[:, None], axis=2)
     # (W, 3, 6, N)
     # S[f, g] -= sum_{j,n} Hpc[f, j, i, n] T[g, j, k, n]: ONE contraction
-    # of size 3N — the matmul the MXU eats.
+    # of size 3N.
     s_off = reduce_fn(jnp.einsum("fjin,gjkn->fgik", eq.hpc, t))
     hcc_d = _damped(eq.hcc, lam)
     s = -s_off

@@ -1,6 +1,6 @@
 """New-point selection: saliency NMS + masked admission into the point table.
 
-TPU-native replacement for the reference's hot loop no. 2 (SURVEY.md 3.2):
+JAX replacement for the reference's hot loop no. 2 (SURVEY.md 3.2):
 scan the saliency map, non-max suppress, skip blocks near tracked points,
 require valid depth, backproject, store descriptor patch, cap point count.
 The reference does this with sequential loops and a mutable mask image; here

@@ -1,6 +1,6 @@
 """Visibility tracking: project scene points into a new frame and gate by ZNCC.
 
-TPU-native replacement for the reference's hot loop no. 1 (SURVEY.md 3.2):
+JAX replacement for the reference's hot loop no. 1 (SURVEY.md 3.2):
 an OpenMP loop over `_scene_points` that projects each into the new frame,
 scores ZNCC against the stored descriptor patch, and records an observation
 if the score passes `minScore`. Here the whole point table is processed in

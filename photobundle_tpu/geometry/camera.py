@@ -1,6 +1,6 @@
 """Pinhole camera model: calibration, projection, and analytic Jacobians.
 
-TPU-native replacement for the reference's `Calibration` struct and the
+JAX replacement for the reference's `Calibration` struct and the
 projection math inside the photometric cost functor (reference:
 pb:src/photobundle.cc `DescriptorError`-style functor; pb:src/dataset.cc
 `Calibration{fx,fy,cx,cy,b}` parsed from KITTI calib.txt).

@@ -1,6 +1,6 @@
 """SE(3) / SO(3) Lie-group operations, batched and jit-friendly.
 
-TPU-native replacement for the reference's pose handling
+JAX replacement for the reference's pose handling
 (reference: pb:src/pose_utils.*, and the Ceres angle-axis parameterization
 used by the photometric cost in pb:src/photobundle.cc). Everything here is
 pure JAX, float32-first, and broadcasts over leading batch dimensions so that

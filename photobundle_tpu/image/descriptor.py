@@ -1,6 +1,6 @@
 """Multi-channel descriptor frames: Intensity / IntensityAndGradient / BitPlanes.
 
-TPU-native replacement for `DescriptorFrame` (reference: pb:src/photobundle.cc
+JAX replacement for `DescriptorFrame` (reference: pb:src/photobundle.cc
 DescriptorFrame::Create; BitPlanes channels from Alismail's BitPlanes tracker).
 A descriptor frame is a plain pytree:
 

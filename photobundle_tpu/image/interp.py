@@ -1,6 +1,6 @@
 """Bilinear image sampling with analytic spatial gradients.
 
-TPU-native replacement for Ceres' `Grid2D` + `BiCubicInterpolator`
+JAX replacement for Ceres' `Grid2D` + `BiCubicInterpolator`
 (reference: pb:src/photobundle.cc photometric cost; the reference gets image
 derivatives for free from autodiff through the bicubic interpolator). Per the
 north-star spec (BASELINE.json), this framework uses *bilinear* interpolation
@@ -14,11 +14,11 @@ Two gradient modes (config.gradientMode):
   images (DSO-style). Smoother objective, better LM convergence; the engine
   default.
 
-Implementation notes (TPU): sampling is a gather. We flatten (y, x) into a
+Implementation notes: sampling is a gather. We flatten (y, x) into a
 single linear index and use `jnp.take` on the flattened image, which XLA
-lowers to a single 1D gather — measurably faster on TPU than 2D gathers.
-All out-of-bounds coordinates are clamped and reported via a validity mask;
-values remain finite so downstream masking is safe under `grad`.
+lowers to a single 1D gather. All out-of-bounds coordinates are clamped and
+reported via a validity mask; values remain finite so downstream masking is
+safe under `grad`.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""TPU-native stereo block matching (disparity estimation).
+"""JAX stereo block matching (disparity estimation).
 
 Replaces the reference's OpenCV `cv::StereoBM` / `cv::StereoSGBM` call in the
 dataset layer (pb:src/dataset.cc `StereoAlgorithm::run`). The reference runs
@@ -201,7 +201,7 @@ def semi_global_match(
     SAD matching costs (same base cost as block_match, smaller default
     window) aggregated along 4 scanline directions (left/right/up/down —
     OpenCV's SGBM default mode aggregates 5 paths; 4-path is the standard
-    TPU/GPU formulation) with the Hirschmueller P1/P2 smoothness model,
+    accelerator formulation) with the Hirschmueller P1/P2 smoothness model,
     then the same winner-take-all + sub-pixel + gating postprocessing as
     block_match. Each direction is one `lax.scan` whose carry is a full
     scanline's (pixels, D) cost slice — compiler-friendly control flow, no

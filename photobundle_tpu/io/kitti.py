@@ -1,11 +1,12 @@
 """KITTI odometry dataset ingestion (host side) + dataset factory.
 
-TPU-native counterpart of the reference's dataset layer (pb:src/dataset.h/.cc:
+Counterpart of the reference's dataset layer (pb:src/dataset.h/.cc:
 `Dataset::Create` factory, `KittiDataset`/`StereoDataset`, `Calibration`,
 `StereoFrame`, `StereoAlgorithm`). Per SURVEY.md section 2a the disparity
-pipeline is input preparation only, so image decode stays on the host
-(PIL/OpenCV allowed off-TPU) while stereo matching itself runs as the JAX
-block matcher in image/stereo.py (on-device) or, optionally, OpenCV.
+pipeline is input preparation only, so image decode stays on the host (the
+native libpng loader, or io/png.py) while stereo matching itself runs as the
+JAX block matcher in image/stereo.py (on-device), the native matcher, or,
+as an explicit opt-in (OPENCV_BM), OpenCV.
 
 Directory layout (KITTI odometry):
     <root>/sequences/<NN>/image_0/??????.png   left gray
@@ -26,6 +27,7 @@ import numpy as np
 
 from ..config import PBAConfig
 from ..geometry.camera import Camera
+from . import png
 
 
 class StereoFrame(NamedTuple):
@@ -37,16 +39,7 @@ class StereoFrame(NamedTuple):
 
 
 def _imread_gray(path: str) -> np.ndarray:
-    try:
-        import cv2
-
-        img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-        if img is None:
-            raise IOError(f"failed to read {path}")
-    except ImportError:  # cv2 absent in this image; PIL is the decode path
-        from PIL import Image
-
-        img = np.asarray(Image.open(path).convert("L"))
+    img = png.to_gray(png.read_png(path))
     # Multiply by the f32 reciprocal (not /255) so pixels match the
     # device-side uint8 dequantization bitwise (engine transport path).
     return img.astype(np.float32) * np.float32(1.0 / 255.0)

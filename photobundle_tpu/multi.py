@@ -13,8 +13,11 @@ Work units (sequence segments) go through the elastic LeaseScheduler
 (parallel/scheduler.py): workers claim units, heartbeat while refining, and
 steal units from dead workers — so losing a worker mid-run only costs that
 worker's in-flight unit, which a survivor re-runs. With --elastic-dir on
-shared storage the same command scales across hosts; each host's JAX
-process drives its own TPU chips.
+shared storage the same command scales across hosts.
+
+On a GPU host each spawned worker sees exactly one card (worker k gets card
+k through CUDA_VISIBLE_DEVICES): a JAX process reserves most of every card
+it opens, so workers sharing cards would starve each other of memory.
 """
 
 from __future__ import annotations
@@ -161,6 +164,42 @@ def merge_outputs(args) -> None:
                 os.path.join(args.output_dir, f"{s:02d}.txt"), merged)
 
 
+def visible_gpus(environ=None) -> list:
+    """Card ids the spawned workers may use, found without opening JAX in
+    this process (it would reserve the cards' memory). Empty where the
+    workers run on the CPU."""
+    environ = os.environ if environ is None else environ
+    platforms = environ.get("JAX_PLATFORMS", "")
+    if platforms and not any(p in platforms for p in ("cuda", "gpu")):
+        return []
+    if "CUDA_VISIBLE_DEVICES" in environ:
+        return [d.strip() for d in environ["CUDA_VISIBLE_DEVICES"].split(",")
+                if d.strip() and d.strip() != "-1"]
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=index", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return []
+    if out.returncode != 0:
+        return []
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
+
+
+def worker_envs(n_workers: int, gpus: list, environ=None) -> list:
+    """One environment per spawned worker: on a GPU host worker k sees only
+    card gpus[k]; more workers than cards is refused. CPU hosts
+    (gpus == []) pass the environment through unchanged."""
+    environ = dict(os.environ if environ is None else environ)
+    if not gpus:
+        return [dict(environ) for _ in range(n_workers)]
+    if n_workers > len(gpus):
+        raise ValueError(f"--workers {n_workers} exceeds the {len(gpus)} "
+                         f"visible GPU(s) {gpus}: one worker per card")
+    return [dict(environ, CUDA_VISIBLE_DEVICES=gpus[k])
+            for k in range(n_workers)]
+
+
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     if args.workers <= 1:
@@ -168,6 +207,7 @@ def main(argv=None) -> int:
         merge_outputs(args)
         return rc
     # Spawn local worker processes; each claims from the shared scheduler.
+    envs = worker_envs(args.workers, visible_gpus())
     procs = []
     for k in range(args.workers):
         cmd = [sys.executable, "-m", "photobundle_tpu.multi",
@@ -181,7 +221,7 @@ def main(argv=None) -> int:
         if args.poses_dir:
             cmd += ["--poses-dir", args.poses_dir]
         cmd += list(args.overrides)
-        procs.append(subprocess.Popen(cmd))
+        procs.append(subprocess.Popen(cmd, env=envs[k]))
     rc = 0
     for p in procs:
         rc |= p.wait()

@@ -2,8 +2,8 @@
 
 The shared library is built on first use with the system toolchain (g++,
 libpng, zlib, OpenMP — all baked into the image); no pip/apt involved.
-Everything here is host-side I/O + preprocessing — the TPU compute path
-stays in JAX/Pallas. Callers must tolerate `available() == False`
+Everything here is host-side I/O + preprocessing — the device compute path
+stays in JAX. Callers must tolerate `available() == False`
 (e.g. missing toolchain) and fall back to the pure-Python path.
 """
 
@@ -26,16 +26,23 @@ _build_error: str | None = None
 
 
 def _build() -> str | None:
+    # Build to a private file and rename it into place: processes that
+    # start together (test workers, spawned workers) may all build, and
+    # none may load a library another is still writing.
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-        "-std=c++17", _SRC, "-o", _LIB, "-lpng", "-lz", "-lpthread",
+        "-std=c++17", _SRC, "-o", tmp, "-lpng", "-lz", "-lpthread",
     ]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except Exception as e:  # toolchain missing
         return f"{type(e).__name__}: {e}"
     if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
         return proc.stderr[-2000:]
+    os.replace(tmp, _LIB)
     return None
 
 
@@ -49,7 +56,11 @@ def _load():
             _build_error = _build()
             if _build_error is not None:
                 return None
-        lib = ctypes.CDLL(_LIB)
+        try:
+            lib = ctypes.CDLL(_LIB)
+        except OSError as e:   # built elsewhere, or a runtime library missing
+            _build_error = f"cannot load {_LIB}: {e}"
+            return None
         lib.pb_png_size.argtypes = [ctypes.c_char_p,
                                     ctypes.POINTER(ctypes.c_int),
                                     ctypes.POINTER(ctypes.c_int)]

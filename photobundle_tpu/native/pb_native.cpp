@@ -1,13 +1,13 @@
 // Native host runtime for photobundle-tpu: PNG ingestion, stereo block
 // matching, and a prefetching frame pipeline.
 //
-// TPU-native counterpart of the reference's C++ dataset layer
+// Host-side counterpart of the reference's C++ dataset layer
 // (pb:src/dataset.cc: cv::imread + cv::StereoBM inside Dataset::getFrame,
 // SURVEY.md section 3.5). The reference decodes and block-matches on the
 // main thread between solves; this loader runs a small worker pool that
 // decodes + matches frames AHEAD of the solver (the pipeline-parallel
 // analog of SURVEY.md section 2b: frame t+1 ingestion overlaps the window-t
-// TPU solve), exposed to Python through a C API + ctypes.
+// device solve), exposed to Python through a C API + ctypes.
 //
 // The block matcher reproduces photobundle_tpu/image/stereo.py
 // (block_match) bit-for-bit in semantics: SAD costs with edge-padded box

@@ -1,17 +1,18 @@
 """Device-mesh construction helpers.
 
-TPU-native replacement for the reference's (nonexistent) distribution layer
-— SURVEY.md section 2b/5.8: the reference is a single-process CPU program
-(OpenMP + Ceres threads); here scaling is `jax.sharding.Mesh` axes:
+The reference has no distribution layer — SURVEY.md section 2b/5.8: it is
+a single-process CPU program (OpenMP + Ceres threads); here scaling is
+`jax.sharding.Mesh` axes:
 
     'points'  — residual-block sharding (the TP-analog): the point table and
                 all (N, ...) tensors are sharded; the Schur reduction is a
-                single psum over this axis riding ICI.
+                single psum over this axis (NVLink between the cards of
+                one host).
     'windows' — window/sequence data-parallelism (the DP-analog): independent
                 sliding windows solved concurrently.
 
-Multi-host: `jax.distributed.initialize()` then the same mesh spans hosts
-(DCN for cross-host edges). No hand-written transport — XLA collectives.
+Multi-process: `initialize_distributed` then the same mesh spans processes.
+No hand-written transport — XLA collectives.
 """
 
 from __future__ import annotations
@@ -44,10 +45,19 @@ def replicated_sharding(mesh: Mesh) -> NamedSharding:
 
 def initialize_distributed(coordinator: Optional[str] = None,
                            num_processes: Optional[int] = None,
-                           process_id: Optional[int] = None):
-    """Multi-host bring-up (jax.distributed). Safe no-op when single-host."""
+                           process_id: Optional[int] = None,
+                           local_device_ids: Optional[Sequence[int]] = None):
+    """Multi-process bring-up (jax.distributed). Safe no-op for one process.
+
+    `local_device_ids` are the cards this process opens; the default is one
+    card per process, card `process_id` — the layout of several processes
+    on one host. A JAX process reserves most of every card it opens, so a
+    process must never open its neighbours' cards."""
     if num_processes is None or num_processes <= 1:
         return
+    if local_device_ids is None:
+        local_device_ids = [process_id]
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=num_processes,
-                               process_id=process_id)
+                               process_id=process_id,
+                               local_device_ids=list(local_device_ids))

@@ -1,6 +1,6 @@
-"""Multi-chip BA solve wiring: ALL shard_map specs live here.
+"""Multi-device BA solve wiring: ALL shard_map specs live here.
 
-TPU-native replacement for Ceres' pthread parallel Jacobian evaluation /
+JAX replacement for Ceres' pthread parallel Jacobian evaluation /
 Schur eliminator (reference: Solver::Options::num_threads,
 pb:src/photobundle.cc) — SURVEY.md sections 2a/2b/5.7/5.8.
 
@@ -13,7 +13,7 @@ Sharding layout (the "residual-block sharding" strategy):
     'frames'-axis sharding (wrap_frames_sharded_solve below).
   - The distributed Schur reduction is exactly TWO psums per LM iteration:
     the (W, 6, 6)+(W, 6) pose blocks and the (W, W, 6, 6)+(W, 6) reduced
-    contributions (see core/schur.reduce_camera_system). Both ride ICI.
+    contributions (see core/schur.reduce_camera_system).
   - The reduced 6W x 6W solve is tiny and replicated on every chip, so the
     accepted/rejected LM branch and the pose update are bitwise identical
     across shards — the gauge-consistency requirement of SURVEY.md 'hard
@@ -301,32 +301,46 @@ def make_batched_sharded_solver(mesh: Mesh, cam: Camera, offsets: jax.Array, *,
                                 n_points: int, huber_delta: float,
                                 robust_kind: str = "huber",
                                 gradient_mode: str = "sampled",
-                                max_iterations: int = 20):
+                                backend: str = "xla",
+                                depth_prior_weight: float = 0.0,
+                                max_iterations: int = 20,
+                                function_tolerance: float = 1e-6,
+                                parameter_tolerance: float = 1e-8):
     """Batched raw multi-window lm_solve: vmap over a leading window-batch
     axis, sharded over ('windows', 'points'). Library-level counterpart of
     wrap_batched_optimize. Inputs gain a leading B axis; B must be
-    divisible by the 'windows' axis size."""
+    divisible by the 'windows' axis size. With depth_prior_weight > 0 the
+    solver takes two more (B, N) inputs, ref_slot and inv_depth_seed, as
+    make_frames_sharded_solver does."""
     check_point_capacity(n_points, mesh)
+    use_prior = depth_prior_weight > 0.0
 
     def solve_one(t_wc, x_world, patch, channels, grads, obs_mask,
-                  point_valid, frozen):
+                  point_valid, frozen, ref_slot=None, seed=None):
         return lm.lm_solve(
             cam, t_wc, x_world, patch, channels, grads, obs_mask,
             point_valid, frozen, offsets,
             huber_delta=huber_delta, robust_kind=robust_kind,
-            gradient_mode=gradient_mode,
+            gradient_mode=gradient_mode, backend=backend,
+            depth_prior=((ref_slot, seed, depth_prior_weight)
+                         if use_prior else None),
             max_iterations=max_iterations,
+            function_tolerance=function_tolerance,
+            parameter_tolerance=parameter_tolerance,
             reduce_fn=lambda x: jax.lax.psum(x, POINTS_AXIS),
         )
 
     batched = jax.vmap(solve_one)
     wpt = P(WINDOWS_AXIS, POINTS_AXIS)
     wrep = P(WINDOWS_AXIS)
+    in_specs = [wrep, wpt, wpt, wrep, wrep, wpt, wpt, wrep]
+    if use_prior:
+        in_specs += [wpt, wpt]
     return jax.jit(
         jax.shard_map(
             batched,
             mesh=mesh,
-            in_specs=(wrep, wpt, wpt, wrep, wrep, wpt, wpt, wrep),
+            in_specs=tuple(in_specs),
             out_specs=(wrep, wpt, _stats_specs(wrep)),
             check_vma=False,
         )

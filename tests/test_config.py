@@ -67,35 +67,25 @@ def test_pbaconfig_validation():
     assert PBAConfig(normalizePatches=False).resolve_normalization() == "off"
     assert (PBAConfig(normalizePatches=False, patchNormalization="affine")
             .resolve_normalization() == "off")
-    # patchWarp='scale' (bilinear/sampled) runs on the Pallas scaled
-    # gather kernel (round 5); 'affine' — a full 2-D warp — is XLA-only,
-    # and forcing pallas on it must fail at config load.
-    PBAConfig(patchWarp="scale", solverBackend="pallas").validate()
+    # The fused Triton sampler implements fixed-grid bilinear 'sampled'
+    # gradients under 'mean'/'off' normalization; forcing it onto any other
+    # mode must fail at config load.
+    PBAConfig(solverBackend="triton").validate()
+    PBAConfig(solverBackend="triton", patchNormalization="off").validate()
+    for bad in (dict(patchWarp="scale"), dict(patchWarp="affine"),
+                dict(interpolation="bicubic"), dict(gradientMode="exact"),
+                dict(patchNormalization="affine"), dict(patchScale=True)):
+        with pytest.raises(ValueError):
+            PBAConfig(solverBackend="triton", **bad).validate()
     with pytest.raises(ValueError):
-        PBAConfig(patchWarp="affine", solverBackend="pallas").validate()
-    with pytest.raises(ValueError):
-        PBAConfig(patchWarp="scale", solverBackend="pallas",
-                  interpolation="bicubic").validate()
-    # The scaled gather window (3 * (2*ceil(2R)+2) lanes) must fit one
-    # 128-lane panel: R <= 9 on the pallas path.
-    PBAConfig(patchWarp="scale", solverBackend="pallas",
-              patchRadius=9).validate()
-    with pytest.raises(ValueError):
-        PBAConfig(patchWarp="scale", solverBackend="pallas",
-                  patchRadius=10).validate()
+        PBAConfig(solverBackend="pallas").validate()
     with pytest.raises(ValueError):
         PBAConfig(patchWarp="bogus").validate()
     for mode in ("scale", "affine"):
         PBAConfig(patchWarp=mode).validate()
         assert PBAConfig(patchWarp=mode).resolve_patch_warp() == mode
     assert PBAConfig(patchWarp="affine").resolve_backend() == "xla"
-    # (on CPU hosts 'auto' resolves to xla for 'scale' too; the pallas
-    # routing branch is exercised on TPU.)
     # patchScale is the deprecated spelling of patchWarp='scale'.
-    PBAConfig(patchScale=True, solverBackend="pallas").validate()
-    with pytest.raises(ValueError):
-        PBAConfig(patchScale=True, solverBackend="pallas",
-                  gradientMode="exact").validate()
     PBAConfig(patchScale=True).validate()
     assert PBAConfig(patchScale=True).resolve_patch_warp() == "scale"
     assert PBAConfig().resolve_patch_warp() is None

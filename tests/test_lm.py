@@ -225,10 +225,11 @@ def test_gradient_tolerance_termination(rng):
 def test_frozen_poses_bitwise_invariant_at_world_scale(rng):
     """Regression (round 2): frozen gauge poses must come out of the solve
     BITWISE unchanged, including at KITTI-scale world coordinates
-    (|t| ~ 30 m). On TPU the default bf16 matmul precision quantized
-    T @ exp(xi) so 'frozen' poses moved by ~0.05 m per solve (invisible at
-    toy coordinate scales); the package now forces full-precision matmuls
-    and evaluates pose/point products on the VPU."""
+    (|t| ~ 30 m). A reduced-precision default for f32 matmuls (bf16 on
+    some accelerators, TF32 on GPUs) quantizes T @ exp(xi), so 'frozen'
+    poses moved by ~0.05 m per solve (invisible at toy coordinate scales);
+    the package forces full-precision matmuls and evaluates pose/point
+    products as elementwise arithmetic."""
     from test_residuals import setup_problem
     from photobundle_tpu.geometry import se3 as se3_mod
 

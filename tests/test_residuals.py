@@ -268,7 +268,7 @@ def test_unnormalized_jacobians_match_autodiff(rng):
 
 
 def test_unnormalized_compressed_matches_full(rng):
-    """Compressed (XLA and pallas-interpret) statistics honor
+    """Compressed (XLA and Triton-interpret) statistics honor
     normalize=False identically to the full oracle."""
     from photobundle_tpu.core import schur
 
@@ -276,7 +276,7 @@ def test_unnormalized_compressed_matches_full(rng):
     kw = dict(huber_delta=0.05, gradient_mode="sampled", normalize=False)
     full = res_mod.evaluate(cam, t_wc, x + 0.01, patch, ch, g, obs, off, **kw)
     eq_b = schur.build_normal_equations(full)
-    for backend, extra in (("xla", {}), ("pallas", {"interpret": True})):
+    for backend, extra in (("xla", {}), ("triton", {"interpret": True})):
         comp = res_mod.evaluate_compressed(cam, t_wc, x + 0.01, patch, ch, g,
                                            obs, off, backend=backend,
                                            **extra, **kw)
@@ -337,16 +337,16 @@ def test_robust_weight_families():
 
 
 def test_robust_kind_threads_through_compressed_paths(rng):
-    """evaluate / evaluate_compressed (xla + pallas-interpret) agree on the
+    """evaluate / evaluate_compressed (xla + Triton-interpret) agree on the
     robust cost for every loss kind (the weight algebra lives OUTSIDE the
-    sampling kernels, so all backends must match)."""
+    sampling kernel, so all backends must match)."""
     cam, t_wc, x, patch, ch, g, obs, off = setup_problem(rng, n_pts=7)
     for kind in ("cauchy", "tukey", "none"):
         kw = dict(huber_delta=0.05, gradient_mode="sampled",
                   robust_kind=kind)
         full = res_mod.evaluate(cam, t_wc, x + 0.02, patch, ch, g, obs, off,
                                 **kw)
-        for backend, extra in (("xla", {}), ("pallas", {"interpret": True})):
+        for backend, extra in (("xla", {}), ("triton", {"interpret": True})):
             comp = res_mod.evaluate_compressed(
                 cam, t_wc, x + 0.02, patch, ch, g, obs, off,
                 backend=backend, **extra, **kw)
@@ -417,8 +417,9 @@ def test_affine_normalization_gain_offset_invariance(rng):
 
 
 def test_affine_compressed_matches_full(rng):
-    """Compressed (XLA and pallas-interpret) statistics under 'affine'
-    normalization reproduce the oracle's cost and normal equations."""
+    """Compressed statistics under 'affine' normalization (XLA path; the
+    Triton sampler refuses the mode) reproduce the oracle's cost and normal
+    equations."""
     from photobundle_tpu.core import schur
     from photobundle_tpu.image import patches as pm
 
@@ -427,19 +428,14 @@ def test_affine_compressed_matches_full(rng):
     kw = dict(huber_delta=1e9, gradient_mode="sampled", normalize="affine")
     full = res_mod.evaluate(cam, t_wc, x + 0.02, patch, ch, g, obs, off, **kw)
     eq_b = schur.build_normal_equations(full)
-    for backend, extra in (("xla", {}), ("pallas", {"interpret": True})):
-        comp = res_mod.evaluate_compressed(cam, t_wc, x + 0.02, patch, ch, g,
-                                           obs, off, backend=backend,
-                                           **extra, **kw)
-        np.testing.assert_allclose(float(comp.cost), float(full.cost),
-                                   rtol=1e-5, err_msg=backend)
-        eq_a = schur.to_point_major(
-            schur.build_normal_equations_compressed(comp))
-        for name in ("hpp", "hpc", "hcc", "bp", "bc"):
-            np.testing.assert_allclose(np.asarray(getattr(eq_a, name)),
-                                       np.asarray(getattr(eq_b, name)),
-                                       atol=2e-3, rtol=1e-3,
-                                       err_msg=f"{backend}:{name}")
+    comp = res_mod.evaluate_compressed(cam, t_wc, x + 0.02, patch, ch, g,
+                                       obs, off, **kw)
+    np.testing.assert_allclose(float(comp.cost), float(full.cost), rtol=1e-5)
+    eq_a = schur.to_point_major(schur.build_normal_equations_compressed(comp))
+    for name in ("hpp", "hpc", "hcc", "bp", "bc"):
+        np.testing.assert_allclose(np.asarray(getattr(eq_a, name)),
+                                   np.asarray(getattr(eq_b, name)),
+                                   atol=2e-3, rtol=1e-3, err_msg=name)
 
 
 # ---------------------------------------------------------------------------
@@ -594,76 +590,6 @@ def test_patch_warp_affine_rotation_math():
         "affine", cam, t[0],
         se3.transform_points(se3.se3_inverse(t[0]), x), z_ref, r_wc_ref))[0]
     np.testing.assert_allclose(m0, np.eye(2), atol=1e-6)
-
-
-def test_patch_warp_affine_pallas_backend_rejected(rng):
-    """'affine' warps each patch row in both axes — a full 2-D gather the
-    window kernels cannot tile. evaluate_compressed must refuse rather
-    than silently ignore the warp ('scale' runs on the scaled gather
-    kernel — see test_patch_warp_scale_pallas_matches_xla)."""
-    cam, t, x, patch, ch, g, obs, off, rs = _warp_problem(rng, n_pts=5)
-    with pytest.raises(ValueError, match="patchWarp"):
-        res_mod.evaluate_compressed(
-            cam, t, x, patch, ch, g, obs, off, huber_delta=0.07,
-            backend="pallas", interpret=True,
-            patch_warp=_warp_tuple("affine", t, x, rs))
-
-
-@pytest.mark.parametrize("dz", [1.0, -2.0, 0.6])
-def test_patch_warp_scale_pallas_matches_xla(rng, dz):
-    """The scaled gather kernel (ops/patch_warp.warp_patches_scaled +
-    one-hot resample) must reproduce the XLA gather path's warped
-    statistics: same rho model, same bilinear taps, float32-reassociation
-    tolerance. dz spans rho = 2.0 (clamp boundary), 0.5, and an
-    interior non-exact ratio. Validity: the pallas path's analytic margin
-    is strictly tighter than the XLA per-tap mask, so compare the
-    statistics on the pallas-valid set."""
-    cam, t, x, patch, ch, g, obs, off, rs = _warp_problem(
-        rng, dz=dz, n_pts=12, frame1_only=False)
-    kw = dict(huber_delta=0.07, gradient_mode="sampled")
-    pw = _warp_tuple("scale", t, x, rs)
-    ref = res_mod.evaluate_compressed(cam, t, x, patch, ch, g, obs, off,
-                                      backend="xla", patch_warp=pw, **kw)
-    out = res_mod.evaluate_compressed(cam, t, x, patch, ch, g, obs, off,
-                                      backend="pallas", interpret=True,
-                                      patch_warp=pw, **kw)
-    v_out = np.asarray(out.valid)                         # (N, W)
-    v_ref = np.asarray(ref.valid)
-    assert not np.any(v_out & ~v_ref), "pallas valid must be a subset"
-    assert v_out.sum() >= 0.7 * v_ref.sum()               # margins are tight
-    m = v_out.T.astype(np.float32)                        # (W, N)
-    np.testing.assert_allclose(np.asarray(out.gtg),
-                               np.asarray(ref.gtg) * m[:, None, None, :],
-                               atol=1e-3, rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(out.gtr),
-                               np.asarray(ref.gtr) * m[:, None, :],
-                               atol=1e-3, rtol=1e-4)
-    if (v_out == v_ref).all():
-        np.testing.assert_allclose(float(out.cost), float(ref.cost),
-                                   rtol=1e-5)
-
-
-def test_patch_warp_scale_pallas_identity_matches_fixed(rng):
-    """rho == 1 everywhere (dz = 0): the scaled gather path must agree
-    with the FIXED-grid pallas kernel's statistics (different kernels,
-    same samples) on the common-valid set."""
-    cam, t, x, patch, ch, g, obs, off, rs = _warp_problem(
-        rng, dz=0.0, frame1_only=False)
-    kw = dict(huber_delta=0.07, gradient_mode="sampled")
-    fixed = res_mod.evaluate_compressed(cam, t, x, patch, ch, g, obs, off,
-                                        backend="pallas", interpret=True,
-                                        **kw)
-    warped = res_mod.evaluate_compressed(
-        cam, t, x, patch, ch, g, obs, off, backend="pallas", interpret=True,
-        patch_warp=_warp_tuple("scale", t, x, rs), **kw)
-    v = (np.asarray(fixed.valid) & np.asarray(warped.valid)).T  # (W, N)
-    m = v.astype(np.float32)
-    np.testing.assert_allclose(np.asarray(warped.gtg) * m[:, None, None, :],
-                               np.asarray(fixed.gtg) * m[:, None, None, :],
-                               atol=1e-3, rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(warped.gtr) * m[:, None, :],
-                               np.asarray(fixed.gtr) * m[:, None, :],
-                               atol=1e-3, rtol=1e-4)
 
 
 @pytest.mark.parametrize("mode", ["scale", "affine"])

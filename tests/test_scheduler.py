@@ -106,7 +106,7 @@ def test_heartbeat_prevents_steal(tmp_path):
 
 def test_auto_heartbeat_protects_slow_worker(tmp_path):
     """A live worker stuck in a long operation (e.g. first-window JIT
-    compilation, minutes over a tunnel) must not lose its unit: the timer
+    compilation of a large window) must not lose its unit: the timer
     thread heartbeats independently of work progress (ADVICE round 1)."""
     root = str(tmp_path)
     slow = LeaseScheduler(root, "slow", lease_timeout_s=0.4)

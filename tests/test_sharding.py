@@ -147,6 +147,31 @@ def test_batched_multi_window_solver(rng):
                                atol=1e-4, rtol=1e-4)
 
 
+def test_batched_multi_window_solver_depth_prior(rng):
+    """The batched solver with the inverse-depth prior: each window of the
+    (windows, points) = (2, 4) mesh matches its own one-device solve."""
+    wins = [make_inputs(np.random.default_rng(s), n_pts=32, w=4)
+            for s in (0, 5)]
+    cam, off = wins[0][:2]
+    priors = [(jnp.asarray(rng.integers(0, 4, size=32), jnp.int32),
+               1.0 / jnp.maximum(a[1][:, 2], 0.1)) for _, _, a in wins]
+    batched = tuple(jnp.stack(v) for v in zip(*(a + p for (_, _, a), p
+                                                 in zip(wins, priors))))
+    kw = dict(huber_delta=1e9, max_iterations=6, function_tolerance=0.0,
+              parameter_tolerance=0.0)
+    solver = make_batched_sharded_solver(
+        make_mesh(points=4, windows=2), cam, off, n_points=32,
+        depth_prior_weight=2.0, **kw)
+    t_b, _, s_b = solver(*batched)
+    for i, ((_, _, a), (ref_slot, seed)) in enumerate(zip(wins, priors)):
+        t_1, _, s_1 = lm.lm_solve(cam, *a, off,
+                                  depth_prior=(ref_slot, seed, 2.0), **kw)
+        np.testing.assert_allclose(np.asarray(t_b[i]), np.asarray(t_1),
+                                   atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(float(s_b.final_cost[i]),
+                                   float(s_1.final_cost), rtol=1e-4)
+
+
 @pytest.fixture(scope="module")
 def scene_mod():
     from synthetic import make_sequence

@@ -84,7 +84,7 @@ def test_jax_renderer_matches_numpy(tmp_path):
     """The jitted float32 golden renderer (synthetic.make_render_box_jax)
     must reproduce the float64 numpy render_box below the PNG quantization
     floor — same ray geometry, same sinusoid texture — so golden datasets
-    rendered on-TPU are interchangeable with the original numpy ones."""
+    rendered on an accelerator are interchangeable with the numpy ones."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     import synthetic as syn
 

@@ -7,8 +7,8 @@ are meaningless on a 1-core box — this validates the harness itself):
 
     python tools/bench_multihost.py --procs 2 --devices-per-proc 2
 
-Pod-slice invocation (the real measurement; see BASELINE.md "Multi-host
-scaling runbook"): run ONE copy per host, no --local flag —
+Multi-host invocation (the real measurement): run ONE copy per process,
+no --local flag —
 
     # on every host i of N:
     python tools/bench_multihost.py --role worker --pid $i --procs $N \
@@ -19,10 +19,9 @@ Rank 0 prints one JSON line per layout:
      "window": ..., "ms_per_lm_iter": ..., "m_obs_per_s": ...}
 
 Methodology: the solve is invoked R times on varied inputs (pose jitter
-re-seeded per rep) after one warmup, with a host readback as the
-completion barrier; per-iteration cost is the marginal slope between a
-max_iterations=I_LO and an I_HI run, which cancels dispatch/transfer
-overhead the same way tools/bench_lm_breakdown.py does.
+re-seeded per rep) after one warmup, each ended by block_until_ready;
+per-iteration cost is the marginal slope between a max_iterations=I_LO
+and an I_HI run, which cancels dispatch and transfer overhead.
 """
 import argparse
 import json
@@ -48,9 +47,9 @@ def worker(args) -> None:
     if args.local:
         jax.config.update("jax_platforms", "cpu")
     if args.procs > 1:
-        jax.distributed.initialize(coordinator_address=args.coordinator,
-                                   num_processes=args.procs,
-                                   process_id=args.pid)
+        from photobundle_tpu.parallel.mesh import initialize_distributed
+
+        initialize_distributed(args.coordinator, args.procs, args.pid)
     import numpy as np
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -62,7 +61,9 @@ def worker(args) -> None:
     from photobundle_tpu.geometry import se3
 
     n_dev = len(jax.devices())
-    backend = "pallas" if jax.default_backend() not in ("cpu", "gpu") else "xla"
+    from photobundle_tpu.config import PBAConfig
+
+    backend = PBAConfig().resolve_backend()
     w = args.window
     cam, offsets, prob = _make_problem(args.points, w, args.height,
                                        args.width, patch_radius=2)
@@ -116,17 +117,14 @@ def worker(args) -> None:
                     put(a, s) for a, s in zip(
                         (t0, x_world, patch, channels, grads, obs, pv,
                          frozen), specs)))
-            out = solver(*inits[0])           # warmup/compile
-            float(np.asarray(out[2].final_cost).sum())
+            jax.block_until_ready(solver(*inits[0]))     # warmup/compile
             t_start = time.perf_counter()
-            acc = 0.0
             for rep in range(REPS):
-                out = solver(*inits[rep + 1])
-                acc += float(np.asarray(out[2].final_cost).sum())  # barrier
-            return (time.perf_counter() - t_start) / REPS, acc
+                jax.block_until_ready(solver(*inits[rep + 1]))
+            return (time.perf_counter() - t_start) / REPS
 
-        dt_lo, _ = timed(I_LO)
-        dt_hi, _ = timed(I_HI)
+        dt_lo = timed(I_LO)
+        dt_hi = timed(I_HI)
         ms_iter = (dt_hi - dt_lo) / (I_HI - I_LO) * 1e3
         if args.pid == 0:
             print(json.dumps({

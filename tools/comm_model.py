@@ -1,6 +1,5 @@
 """Per-iteration collective-volume model for the sharded LM solver, with an
-HLO cross-check — the analytic half of the multi-host scaling story while
-real multi-chip hardware is unavailable (BASELINE.md "Multi-host scaling").
+HLO cross-check — the analytic half of the multi-card scaling story.
 
 The distributed Schur assembly (core/lm.py global-assembly block, ShardCtx)
 moves, per LM iteration on a ('frames' = F, 'points' = P) mesh:
@@ -19,11 +18,13 @@ Modes:
         8-virtual-CPU mesh and check the dominant collectives' shapes/bytes
         in the compiled HLO against the analytic model (exact match).
 
-The throughput/bandwidth parameters are explicit and conservative:
-single-chip compute from the measured BASELINE scaling table (30 M obs/s at
-large N), ICI bandwidth a parameter (--ici-gbps, default 90 GB/s per
-direction — adjust to the actual slice; v5e/v5p differ). No overlap of
-comm with compute is assumed (XLA typically overlaps some).
+The throughput/bandwidth parameters are explicit: single-card compute
+(--mobs, M observations/s of one LM iteration; defaults from one H100 SXM
+at a 400 W power limit: 46.2 M obs/s at 4096x5 and 50.8 M obs/s at
+65536x5), and the card-to-card link bandwidth (--link-gbps, default
+450 GB/s each way: NVLink on an H100 SXM host, a data-sheet figure, not
+measured). No overlap of comm with compute is assumed (XLA typically
+overlaps some).
 """
 import argparse
 import json
@@ -64,14 +65,14 @@ def wire_bytes(volumes: dict, mesh_frames: int, mesh_points: int) -> dict:
     }
 
 
-def predict(n_points, window, mesh_frames, mesh_points, ici_gbps,
+def predict(n_points, window, mesh_frames, mesh_points, link_gbps,
             single_chip_mobs):
     chips = mesh_frames * mesh_points
     obs = n_points * window
     compute_ms = obs / (single_chip_mobs * 1e6) / chips * 1e3
     vols = analytic_volumes(n_points, window, mesh_frames, mesh_points)
     wires = wire_bytes(vols, mesh_frames, mesh_points)
-    comm_ms = sum(wires.values()) / (ici_gbps * 1e9) * 1e3
+    comm_ms = sum(wires.values()) / (link_gbps * 1e9) * 1e3
     eff = compute_ms / (compute_ms + comm_ms)
     return {
         "points": n_points, "window": window,
@@ -97,7 +98,7 @@ def verify() -> int:
     import numpy as np
     import jax
     import jax.numpy as jnp
-    import photobundle_tpu  # noqa: F401  (applies platform override)
+    import photobundle_tpu  # noqa: F401  (matmul precision)
     from photobundle_tpu.parallel import sharded
     from photobundle_tpu.geometry.camera import Camera
     from photobundle_tpu.image import patches
@@ -153,21 +154,22 @@ def verify() -> int:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--verify", action="store_true")
-    ap.add_argument("--ici-gbps", type=float, default=90.0)
-    ap.add_argument("--mobs", type=float, default=30.0,
-                    help="measured single-chip M obs/s at large N "
-                         "(BASELINE scaling table)")
+    ap.add_argument("--link-gbps", type=float, default=450.0,
+                    help="card-to-card bandwidth each way (NVLink data "
+                         "sheet, H100 SXM)")
+    ap.add_argument("--mobs", type=float, default=50.8,
+                    help="single-card M obs/s at large N (one H100, "
+                         "65536x5)")
     args = ap.parse_args()
     if args.verify:
         return verify()
     rows = [
         # BASELINE config-1 shape across a points mesh
-        predict(4096, 5, 1, 8, args.ici_gbps, 51.3),
-        predict(65536, 5, 1, 8, args.ici_gbps, args.mobs),
+        predict(4096, 5, 1, 4, args.link_gbps, 46.2),
+        predict(65536, 5, 1, 4, args.link_gbps, args.mobs),
         # BASELINE config-4 (large window) on 2-D meshes
-        predict(102400, 64, 2, 4, args.ici_gbps, args.mobs),
-        predict(102400, 64, 4, 2, args.ici_gbps, args.mobs),
-        predict(102400, 64, 8, 8, args.ici_gbps, args.mobs),
+        predict(102400, 64, 2, 2, args.link_gbps, args.mobs),
+        predict(102400, 64, 4, 1, args.link_gbps, args.mobs),
     ]
     for r in rows:
         print(json.dumps(r))

@@ -1,4 +1,4 @@
-"""Aggregate provenance-keyed golden tables from benchlogs into the
+"""Aggregate provenance-keyed golden tables from golden-run logs into the
 multi-seed summary BASELINE.md publishes.
 
 Round-5 measurement discipline (BASELINE.md "Backend A/B"): the
@@ -6,19 +6,20 @@ single-row noise floor on chaotic golden configs is ~±10-19 ATE points,
 so published claims rest on multi-realization SIGN CONSISTENCY, never on
 single-row margins. This tool makes that test mechanical: it parses the
 "BASELINE.md table (...)" blocks that tools/golden_kitti.py prints into
-every benchlog, groups rows by (provenance, error model), and emits
+its log, groups rows by (provenance, error model), and emits
 
   * the per-seed ATE-reduction matrix with means, and
   * each config's win/loss sign record against a baseline config
     (default W5_production) across realizations.
 
 Usage:
-    python tools/golden_aggregate.py [--logs 'benchlogs/r5g_sharp_*.log']
+    python tools/golden_kitti.py --seed 7 ... > runs/golden_s7.log
+    python tools/golden_aggregate.py --logs 'runs/golden_*.log'
                                      [--baseline W5_production]
 
 Reference anchor: the reference repo publishes no benchmark or golden
 tables at all (SURVEY.md §6, [baseline] "published": {}) — this
-aggregation layer is part of the measurement surface the TPU build adds.
+aggregation layer is part of the measurement surface this build adds.
 """
 
 from __future__ import annotations
@@ -71,8 +72,9 @@ def parse_logs(paths):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--logs", default="benchlogs/r5g_sharp_*.log",
-                    help="glob of golden logs to aggregate")
+    ap.add_argument("--logs", required=True,
+                    help="glob of golden logs to aggregate (the stdout of "
+                         "tools/golden_kitti.py runs)")
     ap.add_argument("--baseline", default="W5_production",
                     help="config the sign test compares against")
     args = ap.parse_args()

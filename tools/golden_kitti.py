@@ -3,7 +3,7 @@ VERDICT item 5): 200-frame 370x1226 stereo sequence through a textured box
 room on a seq-00-style block loop (straights + 90-degree turns), BM-seeded
 depth, full CLI per config, init/refined/GT ATE + RPE table for BASELINE.md.
 
-    python tools/golden_kitti.py                    # walk error model (TPU)
+    python tools/golden_kitti.py                    # walk error model
     python tools/golden_kitti.py --error-model iid  # per-frame jitter model
     python tools/golden_kitti.py --frames 80        # smaller/faster
 
@@ -104,7 +104,7 @@ CONFIGS = {
     # + observability gate on weakly-supported frames (round 3).
     "W5_prior_obsgate": dict(slidingWindowSize=5, motionPriorWeight=2.0,
                              minObsPerFrame=16),
-    # Larger window + motion prior: the accuracy lever the TPU design
+    # Larger window + motion prior: the accuracy lever the batched design
     # unlocks (BASELINE.md round-1 accuracy table).
     "W10_prior": dict(slidingWindowSize=10, motionPriorWeight=5.0),
     # Coarse-to-fine (round-2): 3-level schedule at the reference window.
@@ -197,9 +197,9 @@ def main() -> int:
                     help="'jax' renders jitted float32 frames on the "
                          "default JAX backend (seconds per supersampled "
                          "frame vs >2 min for the float64 numpy path on a "
-                         "1-core host); 'auto' = jax when a TPU is "
-                         "attached. Intensity difference vs numpy is below "
-                         "the PNG quantization floor (see "
+                         "1-core host); 'auto' = jax when an accelerator "
+                         "is attached. Intensity difference vs numpy is "
+                         "below the PNG quantization floor (see "
                          "synthetic.make_render_box_jax).")
     args = ap.parse_args()
     if args.drift_trans is None:
@@ -229,8 +229,7 @@ def main() -> int:
         renderer = args.renderer
         if renderer == "auto":
             import jax
-            renderer = ("jax" if jax.default_backend()
-                        not in ("cpu", "gpu") else "numpy")
+            renderer = "jax" if jax.default_backend() != "cpu" else "numpy"
         rng = np.random.default_rng(12)
         step = (args.step if args.step is not None
                 else (0.3 if args.trajectory == "lateral" else 0.8))

@@ -16,11 +16,11 @@ sys.path.insert(0, REPO)
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import conftest  # noqa: F401  (forces the cpu platform)
 import numpy as np
-from PIL import Image
 import jax.numpy as jnp
 from synthetic import make_texture, render_view, drift_poses
 from photobundle_tpu.geometry.camera import Camera
 from photobundle_tpu.geometry import se3
+from photobundle_tpu.io.png import write_png
 
 
 def main():
@@ -56,7 +56,7 @@ def main():
         img_r, _ = render_view(tex, cam, pr, (H, W))
         for sub, im in (("image_0", img_l), ("image_1", img_r)):
             arr = np.clip(im * 255, 0, 255).astype(np.uint8)
-            Image.fromarray(arr).save(os.path.join(seq, sub, f"{i:06d}.png"))
+            write_png(os.path.join(seq, sub, f"{i:06d}.png"), arr)
 
     with open(os.path.join(seq, "calib.txt"), "w") as f:
         f.write(f"P0: {FX} 0 {W/2-0.5} 0 0 {FX} {H/2-0.5} 0 0 0 1 0\n")
